@@ -19,9 +19,9 @@ def main():
     N = int(sys.argv[2]) if len(sys.argv) > 2 else 2048
     Q = int(sys.argv[3]) if len(sys.argv) > 3 else 256
 
-    from bench import bench_match_data   # row-blocked gen, same workload
+    from pbwt_tpu.synth import match_data
 
-    Xp, Xq = bench_match_data(M, N, Q)
+    Xp, Xq = match_data(M, N, Q)
 
     from pbwt_tpu.ops import match_jax
 

@@ -2,7 +2,7 @@
  *
  * These are fresh implementations of the PBWT primitives (Durbin,
  * Bioinformatics 30:1266-72, 2014) in C for host-side throughput; the
- * device (TPU) path lives in pbwt_tpu/ops.  Exposed through ctypes
+ * device path lives in pbwt_tpu/ops.  Exposed through ctypes
  * (pbwt_tpu/core/native.py); every entry point has a numpy fallback with
  * identical semantics.
  *

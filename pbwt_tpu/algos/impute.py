@@ -247,13 +247,7 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
         T, Nref = p_old.M, p_ref.N
 
         from ..ops import device_requested
-        use_device = False
-        if device_requested():
-            import jax
-            try:
-                use_device = jax.default_backend() == "tpu"
-            except RuntimeError:
-                use_device = False
+        use_device = device_requested()
 
         # segments must be sorted by (target, start) as the per-target
         # scans require (the reference qsorts each target's list by
@@ -332,9 +326,7 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
 
         site_major = False              # x_all/dos_all orientation
         if use_device:
-            from ..ops import enable_compilation_cache
             from ..ops.impute_jax import impute_dosages_device
-            enable_compilation_cache()
             if Xref_nat is None:
                 Xref_nat = p_ref.haplotypes()
             x_all, dos_all, voted = impute_dosages_device(

@@ -236,18 +236,12 @@ def copy_log_likelihood_drop_one(p: PBWT, theta: float, rho: float) -> float:
     (copyLogLikelihoodDropOne, pbwtLikelihood.c:380-420), vectorised over the
     (i, j) copy matrix.
 
-    With PBWT_TPU_DEVICE=1 on a TPU backend the fused Pallas kernel in
-    ops/likelihood_jax carries the copy matrix on device (this is the
-    reference's "explicitly slow path" and the biggest single win from
-    the MXU)."""
+    With PBWT_TPU_DEVICE=1 ops/likelihood_jax carries the copy matrix on
+    the device (f32, so only close to this f64 path: exact=False)."""
     from ..ops import device_requested
     if device_requested(exact=False):
-        import jax
-        if jax.default_backend() == "tpu":
-            from ..ops import enable_compilation_cache
-            from ..ops.likelihood_jax import copy_ll_device
-            enable_compilation_cache()
-            return float(copy_ll_device(p.haplotypes(), theta, rho))
+        from ..ops.likelihood_jax import copy_ll_device
+        return copy_ll_device(p.haplotypes(), theta, rho)
     M = p.M
     X = p.haplotypes()
     left = np.full((M, M), 1.0 / (M - 1.0))

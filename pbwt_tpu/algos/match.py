@@ -355,50 +355,43 @@ def match_sequences_indexed(p: PBWT, q: PBWT, report=report_match_stdout) -> Non
     """Algorithm 5 with materialised a/d/u indexes (matchSequencesIndexed,
     pbwtMatch.c:255-340).  O(N(M+Q)) time, ~13NM bytes memory.
 
-    With PBWT_TPU_DEVICE=1 on a TPU backend, the state evolution runs on
-    the device (ops/match_jax, the divergence Pallas kernel); reports are
+    When the device engine is requested (ops.device_requested), the state
+    evolution runs on the device (ops/match_jax.DeviceMatcher); reports are
     re-sorted into this function's (query, site) order, so output is
     identical."""
     if q.N != p.N:
         raise ValueError(f"query length {q.N} != PBWT length {p.N}")
     from ..ops import device_requested
-    if device_requested() and p.M > 512:
-        import jax
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except RuntimeError:          # backend unavailable (e.g. chip busy)
-            on_tpu = False
-        if on_tpu:
-            from ..ops import enable_compilation_cache, match_jax
-            enable_compilation_cache()
-            # stream the pack3 panel into the matcher (O(M*chunk) host
-            # bytes, pbwtCore.c:527-585's cursor memory model) instead of
-            # materialising the dense (M, N) haplotype matrix
-            matcher = (match_jax.DeviceMatcher.from_pbwt(p) if p.yz
-                       else match_jax.DeviceMatcher(p.haplotypes()))
-            rows = np.asarray(matcher.match(q.haplotypes())).reshape(-1, 4)
-            order = np.lexsort((np.arange(len(rows)), rows[:, 3],
-                                rows[:, 0]))
-            rows = rows[order]
-            events = np.unique(rows[:, [0, 2, 3]], axis=0)
-            from ..core import native
-            binout = getattr(sys.stdout, "buffer", None)
-            if report is report_match_stdout and binout is not None:
-                sys.stdout.flush()
-                if not native.write_match_rows(rows, binout):
-                    for jq, hap, e, k in rows.tolist():
-                        report(jq, hap, e, k)
-                else:
-                    binout.flush()
-            else:
+    if p.M > 512 and device_requested():
+        from ..ops import match_jax
+        # stream the pack3 panel into the matcher (O(M*chunk) host
+        # bytes, pbwtCore.c:527-585's cursor memory model) instead of
+        # materialising the dense (M, N) haplotype matrix
+        matcher = (match_jax.DeviceMatcher.from_pbwt(p) if p.yz
+                   else match_jax.DeviceMatcher(p.haplotypes()))
+        rows = np.asarray(matcher.match(q.haplotypes())).reshape(-1, 4)
+        order = np.lexsort((np.arange(len(rows)), rows[:, 3],
+                            rows[:, 0]))
+        rows = rows[order]
+        events = np.unique(rows[:, [0, 2, 3]], axis=0)
+        from ..core import native
+        binout = getattr(sys.stdout, "buffer", None)
+        if report is report_match_stdout and binout is not None:
+            sys.stdout.flush()
+            if not native.write_match_rows(rows, binout):
                 for jq, hap, e, k in rows.tolist():
                     report(jq, hap, e, k)
-            n_tot = max(len(events), 1)
-            tot_len = int((events[:, 2].astype(np.int64)
-                           - events[:, 1]).sum())
-            log(f"Average number of best matches {n_tot / q.M:.1f}, "
-                f"Average length {tot_len / n_tot:.1f}")
-            return
+            else:
+                binout.flush()
+        else:
+            for jq, hap, e, k in rows.tolist():
+                report(jq, hap, e, k)
+        n_tot = max(len(events), 1)
+        tot_len = int((events[:, 2].astype(np.int64)
+                       - events[:, 1]).sum())
+        log(f"Average number of best matches {n_tot / q.M:.1f}, "
+            f"Average length {tot_len / n_tot:.1f}")
+        return
     query = q.haplotypes()
     reference = p.haplotypes()
     N, M = p.N, p.M
@@ -501,8 +494,8 @@ def match_sequences_sweep(p: PBWT, q: PBWT, report) -> None:
     pbwtMatch.c:363-443): joint sweep of panel and query cursors keeping per
     query the best-match pointer f and its start d.
 
-    With PBWT_TPU_DEVICE=1 on a TPU backend the match set is computed by the
-    device engine (ops/match_jax.DeviceMatcher) and re-ordered into the
+    When the device engine is requested (ops.device_requested) the match
+    set is computed by ops/match_jax.DeviceMatcher and re-ordered into the
     sweep's exact report sequence (per end site, queries in query-PBWT sort
     order), so stdout is byte-identical to the host sweep."""
     if q.N != p.N:
@@ -510,53 +503,46 @@ def match_sequences_sweep(p: PBWT, q: PBWT, report) -> None:
     M, N, QM = p.M, p.N, q.M
 
     from ..ops import device_requested
-    if device_requested() and M > 512:
-        import jax
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except RuntimeError:          # backend unavailable (e.g. chip busy)
-            on_tpu = False
-        if on_tpu:
-            from ..ops import enable_compilation_cache, match_jax
-            enable_compilation_cache()
-            # stream the pack3 panel into the matcher (O(M*chunk) host
-            # bytes) rather than decoding the dense haplotype matrix
-            matcher = (match_jax.DeviceMatcher.from_pbwt(p) if p.yz
-                       else match_jax.DeviceMatcher(p.haplotypes()))
-            rows = matcher.match(q.haplotypes())
-            # query sort position per site: within an end site the sweep
-            # reports queries in q's PBWT order (pbwtMatch.c:376)
-            Yq_ = q.decoded(True)
-            aq_ = (q.aFstart if q.aFstart is not None
-                   else np.arange(QM, dtype=np.int32)).copy()
-            qpos = np.empty((N + 1, QM), np.int32)
-            for k in range(N):
-                qpos[k, aq_] = np.arange(QM)
-                aq_ = engine.forwards_a(aq_, Yq_[k])
-            qpos[N, aq_] = np.arange(QM)
-            rows = np.asarray(rows).reshape(-1, 4)
-            order = np.lexsort((np.arange(len(rows)),
-                                qpos[rows[:, 3], rows[:, 0]], rows[:, 3]))
-            rows = rows[order]
-            n_tot = len(rows)
-            tot_len = int((rows[:, 3].astype(np.int64) - rows[:, 2]).sum())
-            from ..core import native
-            binout = getattr(sys.stdout, "buffer", None)
-            if report is report_match_stdout and binout is not None:
-                sys.stdout.flush()
-                if not native.write_match_rows(rows, binout):
-                    for jq, hap, s_, e_ in rows.tolist():
-                        report(jq, hap, s_, e_)
-                else:
-                    binout.flush()
-            else:
+    if M > 512 and device_requested():
+        from ..ops import match_jax
+        # stream the pack3 panel into the matcher (O(M*chunk) host
+        # bytes) rather than decoding the dense haplotype matrix
+        matcher = (match_jax.DeviceMatcher.from_pbwt(p) if p.yz
+                   else match_jax.DeviceMatcher(p.haplotypes()))
+        rows = matcher.match(q.haplotypes())
+        # query sort position per site: within an end site the sweep
+        # reports queries in q's PBWT order (pbwtMatch.c:376)
+        Yq_ = q.decoded(True)
+        aq_ = (q.aFstart if q.aFstart is not None
+               else np.arange(QM, dtype=np.int32)).copy()
+        qpos = np.empty((N + 1, QM), np.int32)
+        for k in range(N):
+            qpos[k, aq_] = np.arange(QM)
+            aq_ = engine.forwards_a(aq_, Yq_[k])
+        qpos[N, aq_] = np.arange(QM)
+        rows = np.asarray(rows).reshape(-1, 4)
+        order = np.lexsort((np.arange(len(rows)),
+                            qpos[rows[:, 3], rows[:, 0]], rows[:, 3]))
+        rows = rows[order]
+        n_tot = len(rows)
+        tot_len = int((rows[:, 3].astype(np.int64) - rows[:, 2]).sum())
+        from ..core import native
+        binout = getattr(sys.stdout, "buffer", None)
+        if report is report_match_stdout and binout is not None:
+            sys.stdout.flush()
+            if not native.write_match_rows(rows, binout):
                 for jq, hap, s_, e_ in rows.tolist():
                     report(jq, hap, s_, e_)
-            log(f"Average number of best matches including alternates "
-                f"{n_tot / QM:.1f}, Average length "
-                f"{tot_len / max(n_tot, 1):.1f}, Av number per position "
-                f"{tot_len / (QM * N):.1f}")
-            return
+            else:
+                binout.flush()
+        else:
+            for jq, hap, s_, e_ in rows.tolist():
+                report(jq, hap, s_, e_)
+        log(f"Average number of best matches including alternates "
+            f"{n_tot / QM:.1f}, Average length "
+            f"{tot_len / max(n_tot, 1):.1f}, Av number per position "
+            f"{tot_len / (QM * N):.1f}")
+        return
 
     from ..core import native
     ap0 = p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)

@@ -79,9 +79,7 @@ def _paint_device(p: PBWT, cpr: int, map_ih: np.ndarray, n_inds: int):
     part_counts over a region are per-segment prefix differences, with
     closed forms for segments fully before/after the window.
     """
-    from ..ops import enable_compilation_cache
     from ..ops.paint_jax import paint_totals_device
-    enable_compilation_cache()
     sj, ss, se, seg_off = _collect_match_arrays(p)
     M, N = p.M, p.N
     seg_rec = np.repeat(np.arange(M), np.diff(seg_off))
@@ -173,15 +171,9 @@ def paint_ancestry_matrix(p: PBWT, file_root: str, chunksperregion: int = 100,
         flp.write("pos" + "".join(f" IND{i + 1}" for i in range(n_inds)) + "\n")
 
     from ..ops import device_requested
-    use_device = False
     # exact=False: device paint matrices are f32-close, not byte-identical
     # (PARITY.md), so painting routes to the device only on explicit request
-    if device_requested(exact=False) and not outputlocal:
-        import jax
-        try:
-            use_device = jax.default_backend() == "tpu"
-        except RuntimeError:
-            use_device = False
+    use_device = not outputlocal and device_requested(exact=False)
 
     from ..core import native
     lib = native.get_lib()

@@ -173,7 +173,7 @@ def _main(argv: list[str] | None = None) -> int:
             utils.set_log_file(sys.stderr if argv[1] == "-" else open(argv[1], "w"))
             argv = argv[2:]
         elif cmd == "-profile":
-            # device-side tracing: the TPU-native analogue of the
+            # device-side tracing: the device engine's analogue of the
             # reference's rusage-only timeUpdate (utils.c:173-198, SURVEY
             # section 5) — per-command wall time plus a jax.profiler trace
             # viewable in TensorBoard/XProf

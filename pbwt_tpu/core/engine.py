@@ -5,7 +5,7 @@ This is the bit-exact counterpart of the reference cursor engine
 vectorised numpy; semantics (including sentinel values and update order)
 follow the reference exactly so that packed output is byte-identical.
 
-The TPU device engine (pbwt_tpu.ops) implements the same update as a
+The device engine (pbwt_tpu.ops) implements the same update as a
 jit/scan program for throughput; this module is the reference-parity path
 used by file I/O, the CLI and the golden tests.
 """

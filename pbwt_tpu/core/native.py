@@ -1,9 +1,10 @@
 """ctypes bindings to the native host runtime (native/pbwt_native.c).
 
 Compiled on first use with the system C compiler and cached next to the
-package; every caller falls back to the numpy implementations when the
-toolchain or the cached library is unavailable, so the native layer is a
-pure accelerator, never a correctness dependency.
+package (a build product, never committed); every caller falls back to the
+numpy implementations when the toolchain or the cached library is
+unavailable, so the native layer is a pure accelerator, never a
+correctness dependency.
 """
 
 from __future__ import annotations
@@ -24,14 +25,22 @@ _tried = False
 
 
 def _compile() -> bool:
+    # build under a private name and rename into place, so processes that
+    # build concurrently never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cc = os.environ.get("CC", "cc")
     cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-           "-o", _SO, _SRC, "-lz"]
+           "-o", tmp, _SRC, "-lz"]
     try:
         res = subprocess.run(cmd, capture_output=True, timeout=120)
-        return res.returncode == 0
+        if res.returncode == 0:
+            os.replace(tmp, _SO)
+            return True
     except (OSError, subprocess.TimeoutExpired):
-        return False
+        pass
+    if os.path.exists(tmp):
+        os.unlink(tmp)
+    return False
 
 
 def get_lib():

@@ -1,27 +1,31 @@
-"""TPU device engine: PBWT construction as a jitted lax.scan.
+"""Device engine: PBWT construction as a jitted lax.scan.
 
 The reference hot loop (pbwtCursorForwardsAD, pbwtCore.c:485-508 - an O(M)
 stable two-bucket counting sort per site plus a divergence running-max) maps
-onto the TPU as:
+onto XLA as one site step (:func:`site_step`):
 
-  * stable partition  = exclusive prefix-sum of the allele column + scatter
-    (VPU cumsum; one gather + one scatter per site),
+  * stable partition  = exclusive prefix sum of the zero mask + one scatter,
   * divergence update = segmented running maxima with resets after each
     emitted symbol, computed with an associative scan over (value, reset)
     pairs,
   * site recurrence   = jax.lax.scan (the k-recurrence is inherently
-    sequential in a; throughput comes from the M lanes).
+    sequential in a; throughput comes from the M haplotypes).
 
-Outputs: per-site sorted columns (bit-packed on device to cut HBM->host
-traffic 8x), per-site zero-counts (c), and the final prefix/divergence
-arrays.  The host pack3 encoder turns sorted columns into the byte-exact
-.pbwt stream.
+Sites are processed in groups of 32: the group's alleles ride each
+haplotype as one packed int32 word, gathered into the current sort order
+once per group and then carried through the 32 partitions as payload, so
+the per-site allele lookup x[a[j]] (pbwtHtslib.c:134) is one bit shift.
 
-Padding: M is padded to a lane multiple with all-ones haplotypes.  Ones pad
-rows start at the end of the sort order and remain there under every stable
-partition (zeros first; pads follow all real ones because they follow them
-in the current order), so real rows' a/d/y values are unaffected and the
-first M entries of every output column are the unpadded result.
+Outputs: per-site sorted columns (bit-packed on device to cut the download
+8x), per-site zero-counts (c), and the final prefix/divergence arrays.  The
+host pack3 encoder turns sorted columns into the byte-exact .pbwt stream.
+
+Padding: M is padded to a multiple of 128 with all-ones haplotypes.  Ones
+pad rows start at the end of the sort order and remain there under every
+stable partition (zeros first; pads follow all real ones because they
+follow them in the current order), so real rows' a/d/y values are
+unaffected and the first M entries of every output column are the
+unpadded result.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+GROUP = 32  # sites per packed word in the grouped scans
 
-def pad_to(M: int, multiple: int = 256) -> int:
+
+def pad_to(M: int, multiple: int = 128) -> int:
     return ((M + multiple - 1) // multiple) * multiple
 
 
@@ -51,37 +57,47 @@ def _segmented_running_max(vals: jnp.ndarray, resets: jnp.ndarray) -> jnp.ndarra
     return out
 
 
-def pbwt_step(a: jnp.ndarray, d: jnp.ndarray, y: jnp.ndarray, k: jnp.ndarray):
-    """One column update: returns (a_new, d_new, c).
+def gather_words(w_nat: jnp.ndarray, a: jnp.ndarray) -> jnp.ndarray:
+    """w_nat[a]: a group's natural-order packed words in sort order ``a``
+    (a permutation)."""
+    return jnp.take(w_nat, a, unique_indices=True)
 
-    Mirrors pbwtCursorForwardsAD exactly on the first M (unpadded) lanes:
-    a_new = stable partition of a by y; d_new[j] = running max of d over the
-    segment ending at the j-th emitted 0 (resp. 1), seeded with k+1.
-    Sentinels d[0] = d[M] are maintained by the caller-side convention that
-    d[0] is overwritten with k+2 (here: position 0 of d_new).
+
+def site_step(a, d, w, s, k):
+    """One site of the panel advance on (Mp,) arrays in current sort order.
+
+    Stable partition of (a, d, w) by the key bit s of the packed words w,
+    with the reference's divergence update (pbwtCursorForwardsAD,
+    pbwtCore.c:485-508) for global site index k.  ``d`` may be None when
+    the caller needs no divergence array.
+
+    Returns (a', d', w', u, c): u (Mp,) the exclusive zero ranks of the
+    pre-site order (the FM rank table, pbwtCursorCalculateU) and c the
+    zero count.  d'[0] carries the k+2 sentinel.
     """
-    M = a.shape[0]
-    mask0 = y == 0
-    r0 = jnp.cumsum(mask0)                       # inclusive zero-rank
+    Mp = a.shape[0]
+    mask0 = (jax.lax.shift_right_logical(w, s) & 1) == 0
+    r0 = jnp.cumsum(mask0, dtype=jnp.int32)
     c = r0[-1]
-    idx = jnp.arange(M, dtype=r0.dtype)
-    pos = jnp.where(mask0, r0 - 1, c + (idx + 1 - r0) - 1)
-    a_new = jnp.zeros_like(a).at[pos].set(a)
+    u = r0 - mask0
+    # zeros go to their zero rank; ones to c + their one rank (i - u)
+    pos = jnp.where(mask0, u, c + jnp.arange(Mp, dtype=jnp.int32) - u)
 
+    def scatter(x):
+        return jnp.zeros_like(x).at[pos].set(x, unique_indices=True)
+
+    a2, w2 = scatter(a), scatter(w)
+    if d is None:
+        return a2, None, w2, u, c
     kk = jnp.asarray(k, d.dtype)
-    # p-scan: resets after each zero; q-scan: resets after each one
+    # p-scan resets after each zero, q-scan after each one; both are seeded
+    # with k+1 once at the start (pbwtCore.c:489-503)
     prev0 = jnp.concatenate([jnp.zeros(1, bool), mask0[:-1]])
-    prev1 = jnp.concatenate([jnp.zeros(1, bool), (~mask0)[:-1]])
-    seed = d.at[0].max(kk + 1)                   # fold the k+1 seed into d[0]
-    p = _segmented_running_max(seed, prev0)
-    q = _segmented_running_max(seed, prev1)
-    # re-seed segments that started after a reset but should still see k+1?
-    # No: the reference seeds p=q=k+1 once at the start only; after the first
-    # emission p/q reset to 0 (pbwtCore.c:489-503).
-    dvals = jnp.where(mask0, p, q)
-    d_new = jnp.zeros_like(d).at[pos].set(dvals)
-    d_new = d_new.at[0].set(kk + 2)
-    return a_new, d_new, c
+    prev1 = jnp.concatenate([jnp.zeros(1, bool), ~mask0[:-1]])
+    seed = d.at[0].max(kk + 1)
+    pq = jnp.where(mask0, _segmented_running_max(seed, prev0),
+                   _segmented_running_max(seed, prev1))
+    return a2, scatter(pq).at[0].set(kk + 2), w2, u, c
 
 
 def bitpack_column(y: jnp.ndarray) -> jnp.ndarray:
@@ -90,53 +106,6 @@ def bitpack_column(y: jnp.ndarray) -> jnp.ndarray:
     M = y.shape[0]
     shifts = jnp.array([7, 6, 5, 4, 3, 2, 1, 0], dtype=jnp.uint8)
     return (y.reshape(M // 8, 8) << shifts).sum(axis=1).astype(jnp.uint8)
-
-
-@partial(jax.jit, static_argnames=("with_divergence",))
-def build_scan(X_cols: jnp.ndarray, a0: jnp.ndarray, with_divergence: bool = True):
-    """Construct a PBWT over (N, Mp) site-major uint8 columns.
-
-    Returns (Ybits, counts, a_end, d_end):
-      Ybits  (N, Mp//8) uint8 - sorted-order columns, bit-packed
-      counts (N,) int32       - zeros per column (c)
-      a_end  (Mp,) int32      - final prefix array (aFend)
-      d_end  (Mp,) int32      - final divergence array entries 0..Mp-1
-                                (meaningless when with_divergence=False)
-
-    The stable partition is a one-key stable lax.sort carrying a (and the
-    divergence payload) - measured ~1.4x faster on TPU than the
-    cumsum+scatter formulation, whose dynamic scatter XLA serialises.
-    """
-    N, Mp = X_cols.shape
-    d0 = jnp.zeros(Mp, dtype=jnp.int32).at[0].set(1)
-
-    def step(carry, col):
-        a, d, k = carry
-        y = jnp.take(col, a, unique_indices=True)
-        mask0 = y == 0
-        c = jnp.sum(mask0, dtype=jnp.int32)
-        if with_divergence:
-            kk = jnp.asarray(k, d.dtype)
-            prev0 = jnp.concatenate([jnp.zeros(1, bool), mask0[:-1]])
-            prev1 = jnp.concatenate([jnp.zeros(1, bool), (~mask0)[:-1]])
-            seed = d.at[0].max(kk + 1)
-            p = _segmented_running_max(seed, prev0)
-            q = _segmented_running_max(seed, prev1)
-            pq = jnp.where(mask0, p, q)
-            _, a_new, d_new = jax.lax.sort((y, a, pq), num_keys=1,
-                                           is_stable=True)
-            d_new = d_new.at[0].set(kk + 2)
-        else:
-            _, a_new = jax.lax.sort((y, a), num_keys=1, is_stable=True)
-            d_new = d
-        return (a_new, d_new, k + 1), (bitpack_column(y), c)
-
-    (a_end, d_end, _), (ybits, counts) = jax.lax.scan(
-        step, (a0, d0, jnp.int32(0)), X_cols)
-    return ybits, counts, a_end, d_end
-
-
-GROUP = 32  # sites per packed word in the grouped build
 
 
 def pack_group_words(X_cols: np.ndarray) -> np.ndarray:
@@ -170,61 +139,37 @@ def pack_group_words(X_cols: np.ndarray) -> np.ndarray:
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
-def _sort_gather(w_nat: jnp.ndarray, a: jnp.ndarray, iota: jnp.ndarray):
-    """R[i] = w_nat[a[i]] for a permutation ``a`` — computed with two stable
-    sorts instead of a gather (XLA's arbitrary 1-D gather on TPU is nearly
-    serial: measured 1.8 ms for 64k int32, vs ~0.27 ms for the two sorts)."""
-    _, inv = jax.lax.sort((a, iota), num_keys=1, is_stable=True)
-    _, r = jax.lax.sort((inv, w_nat), num_keys=1, is_stable=True)
-    return r
-
-
 @partial(jax.jit, static_argnames=("with_divergence", "n_sites"))
 def build_scan_grouped(W: jnp.ndarray, a0: jnp.ndarray,
                        with_divergence: bool = False,
                        n_sites: int | None = None):
-    """Grouped-packed PBWT construction (the fast path).
+    """Grouped-packed PBWT construction.
 
-    ``W`` is (Ng, Mp) int32 from :func:`pack_group_words`.  Instead of
-    gathering one allele column per site through the evolving prefix array
-    (the reference's y[j] = x[a[j]] permute, pbwtHtslib.c:134), 32 future
-    sites ride along each haplotype as one packed word: the word array is
-    aligned to the current sort order once per group (two-sort gather) and
-    then carried as sort payload through the 32 per-site stable partitions,
-    so the near-serial XLA gather is paid once per 32 sites.
+    ``W`` is (Ng, Mp) int32 from :func:`pack_group_words`; the panel
+    advances one :func:`site_step` per site.
 
-    Returns (ybits (Ng*32, Mp//8), counts (Ng*32,), a_end, d_end).
+    Returns (ybits (Ng*32, Mp//8), counts (Ng*32,), a_end, d_end); d_end
+    holds entries 0..Mp-1 of the divergence array (the initial d when
+    with_divergence=False).
     """
     Ng, Mp = W.shape
-    iota = jnp.arange(Mp, dtype=jnp.int32)
-    shifts = jnp.array([7, 6, 5, 4, 3, 2, 1, 0], dtype=jnp.uint8)
     d0 = jnp.zeros(Mp, dtype=jnp.int32).at[0].set(1)
+    s_iota = jnp.arange(GROUP, dtype=jnp.int32)
 
     def group_step(carry, w_nat):
         a, d, k = carry
-        w = _sort_gather(w_nat, a, iota)
-        ybits, counts = [], []
-        for s in range(GROUP):
-            key = ((w >> s) & 1).astype(jnp.uint8)
-            counts.append(Mp - jnp.sum(key, dtype=jnp.int32))
-            ybits.append((key.reshape(Mp // 8, 8) << shifts)
-                         .sum(axis=1).astype(jnp.uint8))
-            if with_divergence:
-                kk = k + s
-                mask0 = key == 0
-                prev0 = jnp.concatenate([jnp.zeros(1, bool), mask0[:-1]])
-                prev1 = jnp.concatenate([jnp.zeros(1, bool), (~mask0)[:-1]])
-                seed = d.at[0].max(kk + 1)
-                p = _segmented_running_max(seed, prev0)
-                q = _segmented_running_max(seed, prev1)
-                pq = jnp.where(mask0, p, q)
-                _, a, d, w = jax.lax.sort((key, a, pq, w), num_keys=1,
-                                          is_stable=True)
-                d = d.at[0].set(kk + 2)
-            else:
-                _, a, w = jax.lax.sort((key, a, w), num_keys=1,
-                                       is_stable=True)
-        return (a, d, k + GROUP), (jnp.stack(ybits), jnp.stack(counts))
+
+        def site(st, s):
+            a, d, w = st
+            ybits = bitpack_column(
+                (jax.lax.shift_right_logical(w, s) & 1).astype(jnp.uint8))
+            a, d2, w, _, c = site_step(a, d if with_divergence else None,
+                                       w, s, k + s)
+            return (a, d2 if with_divergence else d, w), (ybits, c)
+
+        (a, d, _), (ybits, counts) = jax.lax.scan(
+            site, (a, d, gather_words(w_nat, a)), s_iota)
+        return (a, d, k + GROUP), (ybits, counts)
 
     (a_end, d_end, _), (ybits, counts) = jax.lax.scan(
         group_step, (a0, d0, jnp.int32(0)), W)
@@ -236,7 +181,7 @@ def build_scan_grouped(W: jnp.ndarray, a0: jnp.ndarray,
             counts.reshape(Ng * GROUP), a_end, d_end)
 
 
-def prepare_columns(X: np.ndarray, multiple: int = 256) -> tuple[np.ndarray, int]:
+def prepare_columns(X: np.ndarray, multiple: int = 128) -> tuple[np.ndarray, int]:
     """(M, N) natural-order haplotypes -> (N, Mp) site-major padded columns."""
     M, N = X.shape
     Mp = pad_to(M, multiple)
@@ -250,39 +195,21 @@ def unpack_bits_host(ybits: np.ndarray, M: int) -> np.ndarray:
     return np.unpackbits(np.asarray(ybits), axis=1)[:, :M]
 
 
-def build_pbwt_device(X: np.ndarray, multiple: int = 256):
+def build_pbwt_device(X: np.ndarray, multiple: int = 128):
     """Full device-accelerated construction from an (M, N) haplotype matrix.
 
-    Device does the O(NM) sort/divergence work; the host pack3-encodes the
-    sorted columns into the byte-exact .pbwt stream.
+    Device does the O(NM) partition work; the host pack3-encodes the
+    sorted columns into the byte-exact .pbwt stream (the C encoder when
+    the native runtime is available).
     Returns (yz bytes, aFend int32[M], counts int32[N]).
     """
-    from ..core import pack3 as p3
+    from ..core import native, pack3 as p3
     M, N = X.shape
-    # Pallas kernel VMEM residency caps out around Mp ~ 2M rows (the
-    # word plane is Mp*4 bytes and ~a dozen stay live); beyond that the
-    # XLA grouped path takes over
-    use_pallas = (jax.default_backend() == "tpu" and M > 4096
-                  and pad_to(M, 4096) <= (1 << 21))
-    if use_pallas:
-        multiple = max(multiple, 4096)
     cols, Mp = prepare_columns(X, multiple)
     a0 = jnp.arange(Mp, dtype=jnp.int32)
-    W = jnp.asarray(pack_group_words(cols))
-    if use_pallas:
-        from . import enable_compilation_cache, partition_pallas as pp
-        enable_compilation_cache()
-        # the two-word kernel carries an extra plane: VMEM-bound ~512k rows
-        if W.shape[0] % 2 == 0 and Mp <= (1 << 19):
-            ywords, counts, a_end = pp.build_scan_pallas_noa64(W, a0)
-        else:
-            ywords, counts, a_end = pp.build_scan_pallas_noa(W, a0)
-        Ysort = pp.unpack_sitewords_host(np.asarray(ywords[:N]), M)
-        counts = counts[:N]
-    else:
-        ybits, counts, a_end, _ = build_scan_grouped(W, a0)
-        ybits, counts = ybits[:N], counts[:N]
-        Ysort = unpack_bits_host(np.asarray(ybits), M)
-    yz, _ = p3.pack_columns(Ysort)
+    ybits, counts, a_end, _ = build_scan_grouped(
+        jnp.asarray(pack_group_words(cols)), a0)
+    Ysort = unpack_bits_host(np.asarray(ybits[:N]), M)
+    yz, _ = native.encode_cols(Ysort) or p3.pack_columns(Ysort)
     a_end_host = np.asarray(a_end)[:M].astype(np.int32)
-    return yz, a_end_host, np.asarray(counts)
+    return yz, a_end_host, np.asarray(counts[:N])

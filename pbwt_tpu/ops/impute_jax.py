@@ -1,11 +1,11 @@
-"""TPU device engine: reference imputation as a batched forward pass.
+"""Device engine: reference imputation as a batched forward pass.
 
 The reference's imputation inner loop (referenceImpute3,
 pbwtImpute.c:1184-1251) walks, per reference site and per target haplotype,
 the maximal-match segments covering that site and takes a positionally
 weighted vote w = (k-start)*(end-k) over the donors' alleles.
 
-TPU formulation: segments (one row per maximal match, sorted by target
+Device formulation: segments (one row per maximal match, sorted by target
 haplotype) become dense arrays; per site-chunk the donor alleles are a row
 gather, activity masks and weights are closed-form elementwise in k, and
 the per-target reduction is a cumsum-difference over the sorted segment

@@ -1,117 +1,52 @@
-"""TPU device engine: Li-Stephens leave-one-out copy-model likelihood.
+"""Device engine: Li-Stephens leave-one-out copy-model likelihood.
 
 The reference's copyLogLikelihoodDropOne (pbwtLikelihood.c:380-420) is an
-explicit O(NM^2) dense recurrence - its slowest algorithm.  On TPU the
-per-site update is a fused elementwise pass over the (M, M) copy matrix
-plus a row reduction, implemented as a Pallas kernel tiled over rows and
-driven by a lax.scan over sites:
+explicit O(NM^2) dense recurrence - its slowest algorithm.  On the device
+the per-site update is one elementwise pass over the (M, M) copy matrix
+plus a row sum, which XLA fuses, driven by a lax.scan over sites:
 
   left <- (left * (1-rho) + rho/(M-1)) * (theta if x_i != x_j else 1-theta)
   left[i][i] <- 0 ;  LL_i += log(sum_j left[i][j]) ;  left[i] /= sum_j
 
 The allele-agreement matrix is rank-1 (outer compare of the site column),
-so the kernel consumes only the column vector, never a materialised M x M
-boolean.  Rows evolve independently, so lane padding is harmless on the row
-axis and masked on the column axis inside the kernel.
+so only the column vector is carried into the step.  The previous step's
+normalisation is folded into the next update (left is carried
+un-normalised together with its inverse row sums), so each site is a
+single pass over the matrix.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _ls_step_kernel(x_ref, left_ref, invrs_ref, out_ref, rowsum_ref, *, M,
-                    rho1, rho_m, theta, theta1, tile_m):
-    """One row-tile of the copy-matrix update, with the previous step's
-    normalisation fused in (prev left is carried UN-normalised together with
-    its row sums, so each site is a single HBM pass over the matrix).
-
-    x_ref: (1, Mp) site column; left_ref/out_ref: (TILE_M, Mp);
-    invrs_ref: (TILE_M, 1) 1/rowsum of the previous step;
-    rowsum_ref: (TILE_M, 1) row sums after this update (diagonal zeroed,
-    padded columns masked)."""
-    i = pl.program_id(0)
-    x = x_ref[0, :]
-    Mp = x.shape[0]
-    rows = jax.lax.broadcasted_iota(jnp.int32, (tile_m, Mp), 0) + i * tile_m
-    cols = jax.lax.broadcasted_iota(jnp.int32, (tile_m, Mp), 1)
-    xi = x_ref[0, pl.ds(i * tile_m, tile_m)].reshape(tile_m, 1)
-    eq = xi == x.reshape(1, Mp)
-    scale = rho1 * invrs_ref[:, :]           # (TILE_M, 1) broadcast
-    upd = (left_ref[:, :] * scale + rho_m) * jnp.where(eq, theta1, theta)
-    upd = jnp.where((rows == cols) | (cols >= M), 0.0, upd)
-    out_ref[:, :] = upd
-    rowsum_ref[:, :] = jnp.sum(upd, axis=1, keepdims=True)
-
-
-def _make_ls_step(M: int, Mp: int, theta: float, rho: float, tile_m: int,
-                  interpret: bool):
-    kernel = functools.partial(
-        _ls_step_kernel, M=M, rho1=1.0 - rho, rho_m=rho / (M - 1.0),
-        theta=theta, theta1=1.0 - theta, tile_m=tile_m)
-    return pl.pallas_call(
-        kernel,
-        grid=(Mp // tile_m,),
-        in_specs=[
-            pl.BlockSpec((1, Mp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, Mp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile_m, Mp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Mp, Mp), jnp.float32),
-            jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-        ],
-        interpret=interpret,
-    )
-
-
-def copy_ll_device(X: np.ndarray, theta: float, rho: float,
-                   interpret: bool | None = None) -> float:
+def copy_ll_device(X: np.ndarray, theta: float, rho: float) -> float:
     """Device Li-Stephens drop-one log likelihood; equals the host
     copy_log_likelihood_drop_one up to f32 accumulation order."""
     M, N = X.shape
-    tile = 128 if M >= 128 else 8
-    Mp = ((M + tile - 1) // tile) * tile
-    if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
-    step = _make_ls_step(M, Mp, theta, rho, tile, interpret)
-
-    cols = np.zeros((N, Mp), dtype=np.float32)
-    cols[:, :M] = X.T
-    left0 = np.full((Mp, Mp), 1.0 / (M - 1.0), dtype=np.float32)
-    left0[np.arange(Mp), np.arange(Mp)] = 0.0
-    left0[:, M:] = 0.0
-    row_live = (np.arange(Mp) < M)
+    rho1, rho_m = 1.0 - rho, rho / (M - 1.0)
+    theta1 = 1.0 - theta
 
     @jax.jit
-    def run(cols_dev, left_init):
-        live = jnp.asarray(row_live)
+    def run(cols):
+        off_diag = ~jnp.eye(M, dtype=bool)
 
         def body(carry, x):
             left, invrs, ll = carry
-            upd, rowsum = step(x.reshape(1, Mp), left, invrs)
-            rs = jnp.maximum(rowsum, 1e-30)
-            ll = ll + jnp.where(live, jnp.log(rs[:, 0]), 0.0)
-            return (upd, 1.0 / rs, ll), None
+            eq = x[:, None] == x[None, :]
+            upd = (left * (rho1 * invrs) + rho_m) * jnp.where(eq, theta1,
+                                                             theta)
+            upd = jnp.where(off_diag, upd, 0.0)
+            rs = jnp.maximum(jnp.sum(upd, axis=1, keepdims=True), 1e-30)
+            return (upd, 1.0 / rs, ll + jnp.log(rs[:, 0])), None
 
-        invrs0 = jnp.ones((Mp, 1), jnp.float32)
-        (_, _, ll), _ = jax.lax.scan(body, (left_init, invrs0, jnp.zeros(Mp)),
-                                     cols_dev)
+        left0 = jnp.where(off_diag, jnp.float32(1.0 / (M - 1.0)), 0.0)
+        init = (left0, jnp.ones((M, 1), jnp.float32),
+                jnp.zeros(M, jnp.float32))
+        (_, _, ll), _ = jax.lax.scan(body, init, cols)
         return ll
 
-    ll = run(jnp.asarray(cols), jnp.asarray(left0))
-    return float(np.asarray(ll)[:M].sum())
+    ll = run(jnp.asarray(np.ascontiguousarray(X.T, np.uint8)))
+    return float(np.asarray(ll).sum())

@@ -1,4 +1,4 @@
-"""TPU device engine: ChromoPainter co-ancestry accumulation.
+"""Device engine: ChromoPainter co-ancestry accumulation.
 
 paintAncestryMatrix's hot loop (pbwtPaint.c:112-137) is, per recipient
 haplotype and per site, a normalised (k-start)*(end-k) weighted vote over

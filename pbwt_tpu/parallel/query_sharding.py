@@ -2,7 +2,7 @@
 site-parallel painting.
 
 The reference has no parallelism to port (SURVEY.md section 2); these are
-the TPU-native distributions of its two production consumers:
+the mesh distributions of its two production consumers:
 
 * **Matching** (matchSequencesSweep/Indexed): queries are independent
   given the panel state, so the query batch shards over the mesh while

@@ -1,7 +1,7 @@
 """Sample-sharded PBWT construction over a jax.sharding Mesh.
 
 The reference is single-threaded (SURVEY.md section 2: no parallelism of
-any kind); this module *introduces* the TPU-native scale-out path.
+any kind); this module *introduces* the scale-out path.
 
 Design: **natural ownership + FM position chase** (round-2 rework).  Each
 shard permanently owns a contiguous block of haplotypes in natural order -

@@ -10,6 +10,7 @@ import gzip
 import json
 import os
 import sys
+import tempfile
 from collections import defaultdict
 
 import numpy as np
@@ -20,20 +21,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
     from pbwt_tpu.ops import match_jax
-    from bench import bench_match_data
+    from pbwt_tpu.synth import match_data
 
     Q = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     M = int(sys.argv[2]) if len(sys.argv) > 2 else 100_000
     N = int(sys.argv[3]) if len(sys.argv) > 3 else 2048
 
-    Xp, Xq = bench_match_data(M, N, Q)
+    Xp, Xq = match_data(M, N, Q)
     matcher = match_jax.DeviceMatcher(Xp)
     xq = Xq[:Q]
     rows = matcher.match(xq)                       # compile + warm
     print(f"warm ok: {len(rows)} rows", flush=True)
 
-    tdir = "/tmp/pbwt_trace"
-    os.system(f"rm -rf {tdir}")
+    tdir = tempfile.mkdtemp(prefix="pbwt_trace_")
     jax.profiler.start_trace(tdir)
     for _ in range(3):
         rows = matcher.match(xq)
@@ -47,7 +47,7 @@ def main():
     with gzip.open(files[0], "rt") as fh:
         tr = json.load(fh)
     ev = tr.get("traceEvents", [])
-    # keep complete events on TPU core tracks
+    # keep complete events on the device tracks ("/device:GPU:0", ...)
     pid_names = {e["pid"]: e["args"].get("name", "")
                  for e in ev if e.get("ph") == "M"
                  and e.get("name") == "process_name" and "args" in e}
@@ -58,8 +58,7 @@ def main():
         if e.get("ph") != "X":
             continue
         pname = pid_names.get(e.get("pid"), "")
-        if "TPU" not in pname and "Chip" not in pname and "/device" \
-                not in pname.lower():
+        if "/device:" not in pname:
             continue
         name = e.get("name", "?")
         dur = float(e.get("dur", 0.0))

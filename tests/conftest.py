@@ -2,7 +2,7 @@ import os
 import sys
 
 # tests run on CPU with a virtual 8-device mesh so sharding tests work
-# anywhere; bench.py (not under pytest) uses the real TPU.
+# anywhere; the GPU is exercised by chip_smoke.py and bench.py instead.
 os.environ["JAX_PLATFORMS"] = "cpu"
 if "--xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")

@@ -16,8 +16,7 @@ def pbwt(args, cwd):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     env.setdefault("JAX_PLATFORMS", "cpu")
-    # pin the host engine (byte-parity contract); the device probe would
-    # otherwise dial the TPU plugin from every CLI subprocess
+    # pin the host engine (byte-parity contract)
     env.setdefault("PBWT_TPU_DEVICE", "0")
     res = subprocess.run([sys.executable, "-m", "pbwt_tpu"] + args,
                          cwd=cwd, capture_output=True, env=env)

@@ -18,12 +18,12 @@ def mosaic(seed, M, N, founders=5, switch=0.04):
 
 
 def test_segment_matcher_equals_portable():
-    """DeviceMatcher's kernel-driven segment path (interpret mode on CPU)
-    == the portable match_scan path: same rows, same report order.
+    """DeviceMatcher == the portable match_scan path: same rows, same
+    report order.
 
-    Exercises the production TPU machinery end-to-end: the divergence
-    kernel chain, the MXU one-hot FM rank lookups, the compacted matmul
-    reset path (Q > qc here) and the windowed reset."""
+    Exercises the production device machinery end-to-end: the site-step
+    chain, the one-hot FM rank lookups, the compacted matmul reset path
+    and the windowed reset."""
     from pbwt_tpu.ops import match_jax
     rng = np.random.RandomState(42)
     M, N, Q = 300, 96, 20
@@ -42,7 +42,7 @@ def test_segment_matcher_equals_portable():
     assert np.array_equal(rows_seg, rows_port)
 
 
-def test_trajectory_matcher_equals_interleaved(monkeypatch):
+def test_trajectory_matcher_equals_interleaved():
     """The standing-panel trajectory path (panel tables precomputed once,
     match_scan_indexed per query batch) == the interleaved per-segment
     panel advance: same rows, same order, including reuse of one matcher
@@ -64,8 +64,7 @@ def test_trajectory_matcher_equals_interleaved(monkeypatch):
         return Xq
     m_traj = match_jax.DeviceMatcher(Xp)
     assert m_traj.traj is not None
-    monkeypatch.setenv("PBWT_TPU_TRAJ_BYTES", "0")
-    m_seg = match_jax.DeviceMatcher(Xp)
+    m_seg = match_jax.DeviceMatcher(Xp, traj_bytes=0)
     assert m_seg.traj is None
     for Q, seed in [(20, 1), (7, 2), (20, 3)]:
         Xq = queries(Q, seed)
@@ -73,12 +72,13 @@ def test_trajectory_matcher_equals_interleaved(monkeypatch):
                               np.asarray(m_seg.match(Xq)))
 
 
-def test_segment_matcher_blocked_kernel(monkeypatch):
-    """The block-processed divergence kernel (the M > 512k panel path)
-    produces the exact same rows as the monolithic kernel path."""
+def test_segment_matcher_multi_segment(monkeypatch):
+    """The segment path (forced through the constructor argument) split
+    into one 32-site group per segment == the trajectory path: the carry,
+    record buffer and per-segment id fetch cross segment boundaries."""
     from pbwt_tpu.ops import match_jax
     rng = np.random.RandomState(7)
-    M, N, Q = 300, 64, 8
+    M, N, Q = 300, 100, 8
     Xp = mosaic(11, M, N)
     Xq = np.empty((Q, N), np.uint8)
     for q in range(Q):
@@ -87,18 +87,14 @@ def test_segment_matcher_blocked_kernel(monkeypatch):
             seg = rng.randint(10, 40)
             Xq[q, pos:pos + seg] = Xp[rng.randint(0, M), pos:pos + seg]
             pos += seg
-    rows_mono = np.asarray(match_jax.DeviceMatcher(Xp).match(Xq))
-    # force the blocked path: rmax below R=32, block floor lowered to 8
-    monkeypatch.setenv("PBWT_TPU_KERNEL_RMAX", "2")
-    monkeypatch.setenv("PBWT_TPU_BLOCK_RB", "8")
-    match_jax.match_scan_segment.clear_cache()
-    match_jax.panel_trajectory.clear_cache()
-    try:
-        rows_blk = np.asarray(match_jax.DeviceMatcher(Xp).match(Xq))
-    finally:
-        match_jax.match_scan_segment.clear_cache()
-        match_jax.panel_trajectory.clear_cache()
-    assert np.array_equal(rows_mono, rows_blk)
+    rows_traj = np.asarray(match_jax.DeviceMatcher(Xp).match(Xq))
+    Mp = 384
+    # a device whose snapshot budget holds exactly one group's snapshots
+    monkeypatch.setattr(match_jax, "device_bytes_limit",
+                        lambda: 16 * 4 * Mp * 32)
+    m_seg = match_jax.DeviceMatcher(Xp, traj_bytes=0)
+    assert (m_seg.Mp, m_seg.gseg, m_seg.nseg) == (Mp, 1, 4)
+    assert np.array_equal(np.asarray(m_seg.match(Xq)), rows_traj)
 
 
 def test_from_pbwt_equals_dense():
@@ -124,30 +120,34 @@ def test_from_pbwt_equals_dense():
                           np.asarray(m_dense.match(Xq)))
 
 
-def test_blocked_partition_step_parity():
-    """partition_ad_step_blocked == partition_ad_step on random planes,
-    including skewed all-zero/all-one key columns."""
+def test_site_step_skewed_key_columns():
+    """The site step on a scrambled order and arbitrary divergence values
+    == the host forwards_ad, for random, all-zero and all-one key columns
+    at both ends of the packed word."""
     import jax.numpy as jnp
-    from pbwt_tpu.ops.partition_pallas import (partition_ad_step,
-                                               partition_ad_step_blocked)
+    from pbwt_tpu.core import engine
+    from pbwt_tpu.ops.build import site_step
     rng = np.random.RandomState(0)
-    R, Rb = 96, 32
-    Mp = R * 128
-    a = rng.permutation(Mp).astype(np.int32).reshape(R, 128)
-    d = rng.randint(0, 50, size=(R, 128)).astype(np.int32)
-    planes = [rng.randint(-2 ** 31, 2 ** 31 - 1, size=(R, 128),
+    Mp = 96 * 128
+    a = rng.permutation(Mp).astype(np.int32)
+    d = np.zeros(Mp + 1, np.int32)
+    d[:Mp] = rng.randint(0, 50, size=Mp)
+    for w in [rng.randint(-2 ** 31, 2 ** 31 - 1, size=Mp,
                           dtype=np.int64).astype(np.int32),
-              np.zeros((R, 128), np.int32),
-              np.full((R, 128), -1, np.int32)]
-    for w in planes:
-        for s, kk in [(0, 7), (31, 0)]:
-            ref = partition_ad_step(jnp.asarray(a), jnp.asarray(d),
-                                    jnp.asarray(w), s, kk, interpret=True)
-            got = partition_ad_step_blocked(jnp.asarray(a), jnp.asarray(d),
-                                            jnp.asarray(w), s, kk, rb=Rb,
-                                            interpret=True)
-            for r, g in zip(ref, got):
-                assert np.array_equal(np.asarray(r), np.asarray(g))
+              np.zeros(Mp, np.int32), np.full(Mp, -1, np.int32)]:
+        for s, kk in [(0, 7), (31, 60)]:
+            key = ((w.view(np.uint32) >> s) & 1).astype(np.uint8)
+            a2, d2, w2, u, c = site_step(jnp.asarray(a), jnp.asarray(d[:Mp]),
+                                         jnp.asarray(w), s, kk)
+            a_ref, d_ref = engine.forwards_ad(a, d, key, kk)
+            order = np.concatenate([np.nonzero(key == 0)[0],
+                                    np.nonzero(key == 1)[0]])
+            assert int(c) == int((key == 0).sum())
+            assert np.array_equal(np.asarray(u), np.concatenate(
+                [[0], np.cumsum(key == 0)])[:Mp])
+            assert np.array_equal(np.asarray(a2), a_ref)
+            assert np.array_equal(np.asarray(d2), d_ref[:Mp])
+            assert np.array_equal(np.asarray(w2), w[order])
 
 
 @pytest.mark.parametrize("seed,M", [(0, 24), (1, 30)])  # M=30: not lane-aligned
